@@ -1,6 +1,6 @@
-"""merpcr_tpu — a TPU-native electronic-PCR (STS marker mapping) framework.
+"""merpcr_tpu — an accelerated electronic-PCR (STS marker mapping) framework.
 
-Built from scratch in JAX/XLA for TPU, with the full capabilities of the
+Built from scratch in JAX/XLA (run on NVIDIA GPUs), with the full capabilities of the
 reference merPCR tool (FOI-Bioinformatics/merpcr): mapping STS markers
 (primer pairs + expected amplicon size) onto genomic FASTA sequences with
 me-PCR-compatible flags, semantics, and byte-identical tab-delimited output.

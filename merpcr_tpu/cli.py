@@ -109,7 +109,7 @@ def sts_line_length_type(value):
 def create_parser() -> argparse.ArgumentParser:
     """Reference cli.py:127-214 — identical flags and defaults."""
     parser = argparse.ArgumentParser(
-        description="merPCR-TPU - TPU-native Electronic Rapid PCR",
+        description="merPCR - accelerated Electronic Rapid PCR (JAX)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument("sts_file", type=str, help="STS file (tab-delimited)")
@@ -162,9 +162,9 @@ def create_parser() -> argparse.ArgumentParser:
         "-v", "--version", action="version", version="merPCR-TPU version 1.3.0"
     )
     parser.add_argument("--debug", action="store_true", help="Enable debug logging")
-    # TPU-native addition (no reference counterpart — the reference's -T
-    # process pool maps to device tiling here): shard the search over every
-    # chip in a multi-host slice via jax.distributed; launch one process
+    # Addition with no reference counterpart (the reference's -T process
+    # pool maps to device tiling here): shard the search over every
+    # device of several hosts via jax.distributed; launch one process
     # per host with this flag (or MERPCR_TPU_MULTIHOST=1) and only host 0
     # writes output.
     parser.add_argument(

@@ -76,7 +76,7 @@ class STSHit:
 
 @dataclass
 class ThreadData:
-    """Kept for API parity with reference models.py:62-69. The TPU engine
+    """Kept for API parity with reference models.py:62-69. The device engine
     shards work as device tiles, not host threads, so this is not used on
     the search path."""
 

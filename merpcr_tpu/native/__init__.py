@@ -1,10 +1,11 @@
 """Native (C++) host codec with transparent NumPy fallback.
 
-The TPU does the scanning; the host still has to stream gigabytes of FASTA
-through a byte filter and nibble packer. Those two loops are implemented in
-C++ (fasta_codec.cpp), compiled on first use into a shared library and
-called through ctypes. Everything works identically — just slower — when a
-compiler is unavailable.
+The accelerator does the scanning; the host still has to stream gigabytes
+of FASTA through a byte filter and nibble packer. Those two loops are
+implemented in C++ (fasta_codec.cpp), compiled from that source on first
+use into a shared library next to it (never committed) and called through
+ctypes. Everything works identically — just slower — when a compiler is
+unavailable or the package directory is read-only.
 """
 
 from __future__ import annotations
@@ -21,24 +22,32 @@ logger = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "fasta_codec.cpp")
+_SO = os.path.join(_HERE, "libmp_fasta_codec.so")
 _LIB: "ctypes.CDLL | None | bool" = None  # None = not tried, False = failed
 
 
 def _build_lib() -> str | None:
-    """Compile fasta_codec.cpp to a shared library (cached next to the
-    source when writable, else in a temp dir)."""
-    for target_dir in (_HERE, tempfile.gettempdir()):
-        so_path = os.path.join(target_dir, "libmp_fasta_codec.so")
-        if os.path.exists(so_path) and os.path.getmtime(so_path) >= os.path.getmtime(_SRC):
-            return so_path
+    """Compile fasta_codec.cpp to a shared library next to the source
+    (rebuilt whenever the source is newer). The compiler writes a private
+    file that is renamed into place, so concurrent first uses (parallel
+    test workers) never load a half-written library."""
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        return _SO
+    try:
+        fd, tmp = tempfile.mkstemp(dir=_HERE, suffix=".so.part")
+        os.close(fd)
         try:
-            cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", so_path, _SRC]
+            cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC]
             r = subprocess.run(cmd, capture_output=True, timeout=120)
             if r.returncode == 0:
-                return so_path
+                os.replace(tmp, _SO)
+                return _SO
             logger.debug("native codec build failed: %s", r.stderr.decode()[:500])
-        except Exception as e:  # pragma: no cover
-            logger.debug("native codec build error: %s", e)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    except Exception as e:  # pragma: no cover
+        logger.debug("native codec build error: %s", e)
     return None
 
 

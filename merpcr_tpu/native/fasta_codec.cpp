@@ -1,6 +1,7 @@
 // Native host codec for merpcr_tpu: the host-side hot loops that feed the
-// TPU — FASTA byte filtering and 4-bit nibble packing — as a small C++
-// library loaded via ctypes (build: merpcr_tpu/native/build.py; a NumPy
+// accelerator — FASTA byte filtering and 4-bit nibble packing — as a small C++
+// library loaded via ctypes (built from this file on first use by
+// merpcr_tpu/native/__init__.py; a NumPy
 // fallback in Python keeps everything working without it).
 //
 // Parity contract:

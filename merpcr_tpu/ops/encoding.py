@@ -162,7 +162,7 @@ def iupac_exp_masks() -> tuple[np.ndarray, np.ndarray]:
     that nib_match_matrix(True)[s, p] == ((EXP_NIB[s] & EXP_PRIMER[p]) != 0).
 
     Verified exhaustively by tests; lets the verify stages replace the
-    per-element 16x32 LUT gather with a few VPU select/and passes.
+    per-element 16x32 LUT gather with a few elementwise select/and passes.
     """
     letters = sorted(set("".join(IUPAC_MAPPING.values()))) + ["X"]
     bit = {c: 1 << i for i, c in enumerate(letters)}

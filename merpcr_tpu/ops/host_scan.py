@@ -1,7 +1,7 @@
 """Host (NumPy) scan fast path for SMALL inputs.
 
 A one-shot CLI run on a small genome pays far more for the jax runtime
-(import ~1.5 s, program trace ~1 s — the persistent XLA cache cannot skip
+(import and program trace — the persistent XLA cache cannot skip
 tracing) than for the scan itself. This module is a pure-NumPy
 implementation of the identical match semantics — same LSB-first W-mer
 keys and CSR as the device table, same 256x256 match matrix (so IUPAC and
@@ -37,11 +37,14 @@ def host_scan_record(
     margin: int,
     mismatches: int,
     three_prime: int,
+    capped: bool = True,
 ) -> np.ndarray | None:
     """Scan one record on the host; returns int64[(n_hits, 6)] rows
     (pos1, pos2, entry, tile=0, pair_order, rank) in the device
     pipeline's schema, or None when the workload exceeds the small-input
-    caps (caller falls back to the device path)."""
+    caps (caller falls back to the device path). ``capped=False`` lifts
+    the caps: the scan then always completes, however long it takes —
+    the plain reference that device results are checked against."""
     W = meta.wordsize
     n = len(seq_bytes)
     empty = np.zeros((0, 6), dtype=np.int64)
@@ -70,7 +73,7 @@ def host_scan_record(
         return empty
     starts = ustart[idx[pos]]
     counts = ustart[idx[pos] + 1] - starts
-    if int(counts.sum()) > MAX_CANDIDATES:
+    if capped and int(counts.sum()) > MAX_CANDIDATES:
         return None
 
     M = np.asarray(table.match).reshape(256, 256)
@@ -106,7 +109,7 @@ def host_scan_record(
             hi = 0 if clamped else min(Mdyn, n - k - exp)
             lo = max(0, min(Mdyn, exp - l1 - l2))
             window_work += R
-            if window_work > MAX_WINDOW_WORK:
+            if capped and window_work > MAX_WINDOW_WORK:
                 return None
             pb2 = p2b[e, :l2]
             for r in range(R):

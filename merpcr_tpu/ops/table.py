@@ -1,13 +1,14 @@
 """STS table compiler: searchable entries -> replicated device arrays.
 
 The reference keeps a Python dict ``hash -> [STSRecord]`` (engine.py:324-329)
-that is pickled into every worker process. The TPU-native layout is a CSR
-over W-mer hashes, in struct-of-arrays form, replicated in every chip's HBM:
+that is pickled into every worker process. The device layout is a CSR
+over W-mer hashes, in struct-of-arrays form, replicated in every device's
+memory:
 
 * ``bloom``   — exact bucket-occupancy bitmask over the (possibly truncated)
                 top ``bloom_bits`` bits of the hash. This is the ONLY table
                 the O(sequence) scan stage touches: 512 KB for W=11, so it
-                stays cache/VMEM resident instead of a 16+ MB counts table.
+                stays cache resident instead of a 16+ MB counts table.
                 For 2W > bloom_bits it is a prefix filter whose false
                 positives are removed by the exact stage below.
 * ``uhash``   — sorted unique hashes (uint32), ``ustart`` CSR offsets; the
@@ -41,18 +42,18 @@ from .encoding import (
 )
 
 MAX_BLOOM_BITS = 24  # 2^24 bits = 2 MB; exact for W <= 12
-GTAB_CAP_BITS = 1 << 30  # exact group-table cap: 2^30 bits = 128 MB HBM
+GTAB_CAP_BITS = 1 << 30  # exact group-table cap: 2^30 bits = 128 MB
 T16_MAX_INSERTS = 1 << 22  # disable the 16-base filter past this insert count
 #                            (bounds the host-side scatter at table build)
 GOLD = np.uint32(0x9E3779B1)
-# Group-table truncation: the front-end gather rate cliffs above ~8-16 MB
-# on this TPU (tools/MICROBENCH.md #2, re-measured round 2: 9.4 ns/key at
-# <= 8 MB vs 15.5 ns at >= 16 MB), so exact group tables larger than
-# GQ_TARGET_BITS are folded by OR-ing away their top span bases (quarter
-# ORs of the LSB-first bit plane) while the set-bit density stays low —
-# a sound over-approximation (the exact phase table still removes false
-# phases at expand; false flags only cost compact-stage lanes).
-GQ_TARGET_BITS = 26  # 2^26 bits = 8 MB (2 MB measured no faster in production)
+# Group-table truncation: exact group tables larger than GQ_TARGET_BITS
+# are folded by OR-ing away their top span bases (quarter ORs of the
+# LSB-first bit plane) while the set-bit density stays low — a sound
+# over-approximation (the exact phase table still removes false phases
+# at expand; false flags only cost compact-stage lanes). The 8 MB target
+# keeps the front end's hot gather table small; it was tuned on the
+# previous accelerator (ROADMAP C2) — on the H100 8 MB fits in L2.
+GQ_TARGET_BITS = 26  # 2^26 bits = 8 MB
 GQ_MAX_ADDED_DENSITY = 0.02  # stop folding when a fold would add more
 
 _POP8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
@@ -432,11 +433,10 @@ class DeviceTable(NamedTuple):
     # dense CSR (W <= 12): bucket_start[4^W + 1] — exact lookup is ONE
     # gather instead of a log2(U)-step binary search; dummy [0,0] otherwise
     bstart: jnp.ndarray  # int32[4^W + 1] | int32[2]
-    # W <= 11 only: (start, count) pairs as 2-wide rows — a TPU gather's
-    # cost is per ROW, not per element (tools/MICROBENCH.md #1), so
-    # one row gather replaces the bstart[h] + bstart[h+1] pair
+    # W <= 11 only: (start, count) pairs as 2-wide rows — one row gather
+    # replaces the bstart[h] + bstart[h+1] pair
     bsc: jnp.ndarray  # int32[4^W, 2] | int32[1, 2]
-    # per-entry scalars packed into one 8-wide row (same per-row insight):
+    # per-entry scalars packed into one 8-wide row (one row gather):
     # [hash_offset, p1_len, p2_len, pcr_size, 0, 0, 0, 0]
     emeta: jnp.ndarray  # int32[E, 8]
     hash_offset: jnp.ndarray  # int32[E]
@@ -452,7 +452,7 @@ class DeviceTable(NamedTuple):
     p2_codes: jnp.ndarray  # uint8[E, P2MAX]
     # IUPAC expansion bitmasks (iupac mode only; dummies otherwise):
     # match(s,p) == (EXP_NIB[s] & p*_exp[p]) != 0 — primer side
-    # pre-expanded so verify needs one row gather + VPU ands
+    # pre-expanded so verify needs one row gather + elementwise ands
     p1_exp: jnp.ndarray  # uint32[E, P1MAX] | uint32[1, 1]
     p2_exp: jnp.ndarray  # uint32[E, P2MAX] | uint32[1, 1]
 
@@ -545,9 +545,8 @@ def compile_table(
     # * ``qbloom`` — 1 bit per span value ("SOME phase of this exact span
     #   string starts a bucket key"). This is the only table the
     #   O(sequence) front end gathers; at 4^span bits it is 4x smaller
-    #   than the phase table, and gather throughput on this hardware
-    #   degrades with table size (tools/MICROBENCH.md #2), so the
-    #   hot stage stays on the small one. Zero false positives.
+    #   than the phase table, so the hot stage stays on the small,
+    #   cache-friendlier one. Zero false positives.
     # * ``ptab`` — `stride` bits per FOLDED span value: bit d set iff
     #   bases d..d+W-1 of some span string with these low span-1 bases
     #   are a bucket key. The top span base is folded away AT BUILD

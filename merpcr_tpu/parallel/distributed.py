@@ -1,11 +1,11 @@
-"""Multi-host orchestration (SURVEY.md §2.3 TPU-native equivalent).
+"""Multi-host orchestration (SURVEY.md §2.3 equivalent).
 
 The reference's only cross-worker communication is pickled result lists
-through a process pool (engine.py:415-419). The pod-scale equivalent:
+through a process pool (engine.py:415-419). The multi-host equivalent:
 
 * ``initialize()`` — wrap ``jax.distributed.initialize`` for multi-host
   runs (no-op when single-host or already initialized).
-* a global 1-D mesh over every chip in the slice; each record's scan
+* a global 1-D mesh over every device of every process; each record's scan
   positions are partitioned across the global device order, the compiled
   STS table is replicated, and the per-shard hit buffers are merged with
   the ``all_gather`` already inside ``sharded_scan_record`` — every host
@@ -32,10 +32,14 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed for a multi-host pod slice.
+    """Initialize jax.distributed for a multi-host run.
 
-    With no arguments, relies on the TPU environment's auto-detection.
-    Safe to call when already initialized or single-host (logged no-op).
+    On GPU hosts JAX can only auto-detect the cluster under a scheduler
+    it knows (SLURM, Open MPI); elsewhere pass ``coordinator_address``
+    (``host:port`` of process 0), ``num_processes`` and ``process_id``
+    explicitly. Without either, ``jax.distributed.initialize`` raises and
+    this stays a logged single-process no-op — as it is when already
+    initialized.
     """
     try:
         jax.distributed.initialize(
@@ -53,7 +57,7 @@ def initialize(
 
 
 def global_mesh(axis: str = "shard"):
-    """1-D mesh over all devices in the slice (all hosts)."""
+    """1-D mesh over all devices of all processes."""
     from .sharded import make_mesh
 
     return make_mesh(jax.devices(), axis)

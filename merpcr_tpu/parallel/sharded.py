@@ -1,4 +1,4 @@
-"""Mesh-sharded genome scan (the TPU-native replacement for the reference's
+"""Mesh-sharded genome scan (the multi-device replacement for the reference's
 ProcessPoolExecutor halo chunking, engine.py:381-431).
 
 Strategy (SURVEY.md §2.2/§2.3): scan positions of a record are partitioned
@@ -49,8 +49,7 @@ def _get_sharded_fn(cfg: ScanConfig, n_shards: int, group: int,
                   record_len, rt):
         # NB: slice the (1, buf) shard block 2-D and squeeze only the
         # small tile slice — squeezing the whole plane first makes XLA
-        # re-materialize the multi-MB copy inside the tile loop
-        # (measured +40% on the whole scan).
+        # re-materialize the multi-MB copy inside the tile loop.
         start0 = tile_start0[0]
         boff = goff // 2 if cfg.packed else goff
 

@@ -3,7 +3,7 @@
 scripts/dependency_validation.py:24-415): import / version / conflict /
 platform / functional checks with a JSON report.
 
-The TPU build's runtime surface is jax + numpy (+ optional g++ for the
+The engine's runtime surface is jax + numpy (+ optional g++ for the
 native codec); everything else is stdlib. Beyond bare imports this
 validates the pairings that actually break deployments: jax vs jaxlib
 version agreement, numpy major-version compatibility with the installed
@@ -87,14 +87,14 @@ def check_conflicts():
 
 def check_platform():
     """Per-platform expectations (the reference validates a 3-OS matrix;
-    the TPU build's matrix: linux = TPU or CPU, darwin/windows = CPU)."""
+    this engine's matrix: linux = GPU or CPU, darwin/windows = CPU)."""
     sysname = platform.system().lower()
     return {
         "system": platform.system(),
         "machine": platform.machine(),
         "supported": sysname in ("linux", "darwin", "windows"),
-        "tpu_capable": sysname == "linux",
-        "expected_backends": ["tpu", "cpu"] if sysname == "linux" else ["cpu"],
+        "gpu_capable": sysname == "linux",
+        "expected_backends": ["gpu", "cpu"] if sysname == "linux" else ["cpu"],
         "native_codec_expected": shutil.which("g++") is not None
         and sysname != "windows",
     }
@@ -134,7 +134,9 @@ def check_functional():
 
 def main() -> int:
     quiet = "--quiet" in sys.argv
-    cache_dir = os.path.expanduser("~/.cache/merpcr_tpu_xla")
+    from merpcr_tpu.utils import cache
+
+    cache_dir = cache.cache_dir() or cache.REPO_CACHE_DIR
     report = {
         "python": platform.python_version(),
         "python_ok": sys.version_info >= (3, 11),
@@ -151,7 +153,7 @@ def main() -> int:
         "env": {
             k: v
             for k, v in os.environ.items()
-            if k.startswith(("JAX_", "XLA_", "MERPCR_", "PALLAS_"))
+            if k.startswith(("JAX_", "XLA_", "MERPCR_"))
         },
         "compile_cache_writable": os.access(
             cache_dir if os.path.isdir(cache_dir) else os.path.dirname(cache_dir),

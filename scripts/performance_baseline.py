@@ -144,53 +144,6 @@ def cmd_compare(args) -> int:
     return 0
 
 
-def cmd_matrix_gate(args) -> int:
-    """Regression-gate a fresh TPU bench matrix against the committed
-    artifact (VERDICT r3 #9): every row of ``--current`` (a
-    `bench.py --matrix` output) must be within ``--threshold`` percent
-    of the same row in ``--baseline`` (the checked-in
-    BENCH_MATRIX.json). Rows only in one file are reported, not fatal
-    (new rows need a first artifact). The default threshold matches the
-    README's documented ±8 percent run-to-run noise band, doubled —
-    the gate catches structural regressions, not tunnel jitter."""
-
-    def rows(path):
-        with open(path) as fh:
-            data = json.load(fh)
-        return {
-            r["detail"].get("row", "default"): r["value"] for r in data
-        }
-
-    try:
-        base = rows(args.baseline)
-    except OSError:
-        print(f"No baseline matrix at {args.baseline}")
-        return 2
-    cur = rows(args.current)
-    worst = 0.0
-    worst_row = None
-    for name, val in sorted(cur.items()):
-        old = base.get(name)
-        if old is None:
-            print(f"  {name}: NEW ({val} Mbp/s) — no baseline row")
-            continue
-        delta_pct = 100.0 * (old - val) / old  # positive = slower now
-        if delta_pct > worst:
-            worst, worst_row = delta_pct, name
-        flag = "REGRESSION" if delta_pct > args.threshold else "ok"
-        print(f"  {name}: {old} -> {val} Mbp/s ({-delta_pct:+.1f}%) [{flag}]")
-    for name in sorted(set(base) - set(cur)):
-        print(f"  {name}: MISSING from current run")
-    if worst > args.threshold:
-        print(
-            f"FAIL: {worst_row} regressed {worst:.1f}% "
-            f"(> threshold {args.threshold}%)"
-        )
-        return 1
-    print("PASS: all rows within threshold")
-    return 0
-
-
 def cmd_report(args) -> int:
     if not os.path.isdir(BASELINE_DIR):
         print("No baselines recorded")
@@ -216,15 +169,6 @@ def main() -> int:
     p.set_defaults(fn=cmd_compare)
     p = sub.add_parser("report")
     p.set_defaults(fn=cmd_report)
-    p = sub.add_parser(
-        "matrix-gate",
-        help="compare a fresh bench.py --matrix artifact to the "
-        "committed BENCH_MATRIX.json",
-    )
-    p.add_argument("--baseline", default="BENCH_MATRIX.json")
-    p.add_argument("--current", required=True)
-    p.add_argument("--threshold", type=float, default=16.0)
-    p.set_defaults(fn=cmd_matrix_gate)
     args = ap.parse_args()
     return args.fn(args)
 

@@ -60,10 +60,10 @@ def _genome(seed=0, n=3000, plant=True):
 @needs_oracle
 @pytest.mark.parametrize("w", [4, 8, 16])
 def test_wordsize_extremes(w, tmp_path):
-    ref_out, tpu_out = _both(
+    ref_out, eng_out = _both(
         f"S1\t{P1}\t{P2}\t200\n", f">g\n{_genome()}\n", dict(wordsize=w), tmp_path
     )
-    assert ref_out == tpu_out
+    assert ref_out == eng_out
     assert len(ref_out.splitlines()) >= 1
 
 
@@ -72,35 +72,35 @@ def test_wordsize_extremes(w, tmp_path):
 def test_wordsize_3_dense_buckets(tmp_path):
     # W=3: only 64 buckets — nearly every position is a candidate; the
     # capacity heuristics must absorb it (escalation allowed, output exact)
-    ref_out, tpu_out = _both(
+    ref_out, eng_out = _both(
         f"S1\t{P1}\t{P2}\t200\n",
         f">g\n{_genome(n=1200)}\n",
         dict(wordsize=3),
         tmp_path,
     )
-    assert ref_out == tpu_out
+    assert ref_out == eng_out
 
 
 @needs_oracle
 @pytest.mark.parametrize("m", [0, 1, 9999])
 def test_margin_extremes(m, tmp_path):
-    ref_out, tpu_out = _both(
+    ref_out, eng_out = _both(
         f"S1\t{P1}\t{P2}\t200\n",
         f">g\n{_genome(seed=3, n=1500)}\n",
         dict(margin=m),
         tmp_path,
     )
-    assert ref_out == tpu_out
+    assert ref_out == eng_out
 
 
 @needs_oracle
 def test_mismatch_max_and_x_large(tmp_path):
     # N=10 with X larger than primer length => exact match required
     for params in (dict(mismatches=10), dict(mismatches=10, three_prime_match=50)):
-        ref_out, tpu_out = _both(
+        ref_out, eng_out = _both(
             f"S1\t{P1}\t{P2}\t200\n", f">g\n{_genome(seed=5)}\n", params, tmp_path
         )
-        assert ref_out == tpu_out, params
+        assert ref_out == eng_out, params
 
 
 @needs_oracle
@@ -130,13 +130,13 @@ def test_u_primers_iupac(tmp_path):
     # RNA-style primers (U instead of T) match DNA only in IUPAC mode
     p1u = P1.replace("T", "U")
     for iu in (0, 1):
-        ref_out, tpu_out = _both(
+        ref_out, eng_out = _both(
             f"S1\t{p1u}\t{P2}\t200\n",
             f">g\n{_genome(seed=9)}\n",
             dict(iupac_mode=iu),
             tmp_path,
         )
-        assert ref_out == tpu_out, f"iupac={iu}"
+        assert ref_out == eng_out, f"iupac={iu}"
 
 
 def test_threads_flag_is_output_invariant(tmp_path):

@@ -1,7 +1,7 @@
 """Fault injection and malformed-input tests (mirrors reference
 tests/test_error_injection.py strategy: I/O failures — PermissionError /
 ENOSPC / EMFILE — MemoryError, corrupted and binary inputs, recovery from
-mixed good/bad data; reference :31-236 and :315-501), plus TPU-specific
+mixed good/bad data; reference :31-236 and :315-501), plus device-specific
 faults the reference has no analogue for: device OOM at table build and
 the tile-capacity escalation path (engine._rescan_tile), including its
 RuntimeError exhaustion guard."""
@@ -293,7 +293,7 @@ class TestDataCorruption:
 
 class TestTPUFaults:
     """Device-side fault injection — no reference analogue (SURVEY.md §5:
-    the reference has no runtime recovery; these cover the TPU build's own
+    the reference has no runtime recovery; these cover this engine's own
     failure surfaces)."""
 
     def _hitty_corpus(self, tmp_path):

@@ -145,3 +145,31 @@ def test_host_path_vs_reference(flags, monkeypatch, tmp_path):
 
     monkeypatch.setenv("MERPCR_TPU_HOST_MAX", "1000000000")
     assert run(merpcr_tpu) == run(ref)
+
+
+@pytest.mark.parametrize("mismatches", [0, 1])
+def test_uncapped_host_scan_equals_device(mismatches, monkeypatch, tmp_path):
+    """A flood corpus past the small-input caps: the capped scan bows out
+    (None), and the lifted-cap scan (the reference chip_smoke.py compares
+    device output with) emits exactly what the device pipeline does."""
+    sys.path.insert(0, REPO)
+    import bench
+    from merpcr_tpu.io.fasta import record_seq_bytes
+    from merpcr_tpu.ops.host_scan import host_scan_record
+
+    sts, fa, _n = bench.gen_data(
+        str(tmp_path), 0.05, 1000, planted=5,
+        content="lowcomplex", stsgen="repeat",
+    )
+    monkeypatch.setenv("MERPCR_TPU_HOST_MAX", "0")
+    eng = merpcr_tpu.MerPCR(mismatches=mismatches)
+    assert eng.load_sts_file(sts)
+    recs = eng.load_fasta_file(fa)
+    device = _search(eng, recs)
+    args = (eng._table_host, eng._meta, record_seq_bytes(recs[0]),
+            eng.margin, eng.mismatches, eng.three_prime_match)
+    assert host_scan_record(*args) is None
+    buf = io.StringIO()
+    eng.emit_hits(recs[0].label, host_scan_record(*args, capped=False), buf)
+    assert buf.getvalue() == device
+    assert device.count("\n") >= 5

@@ -51,8 +51,8 @@ def test_random_case_identical(seed, oracle_pkg, tmp_path):
     sts.write_text(sts_text)
     fa.write_text(fa_text)
     ref_out = _run(oracle_pkg, str(sts), str(fa), params)
-    tpu_out = _run(merpcr_tpu, str(sts), str(fa), params)
-    assert ref_out == tpu_out
+    eng_out = _run(merpcr_tpu, str(sts), str(fa), params)
+    assert ref_out == eng_out
 
 
 def test_multihit_margin_ordering(oracle_pkg, tmp_path):
@@ -68,8 +68,8 @@ def test_multihit_margin_ordering(oracle_pkg, tmp_path):
     fa.write_text(f">g\n{genome}\n")
     params = dict(margin=20)
     ref_out = _run(oracle_pkg, str(sts), str(fa), params)
-    tpu_out = _run(merpcr_tpu, str(sts), str(fa), params)
-    assert ref_out == tpu_out
+    eng_out = _run(merpcr_tpu, str(sts), str(fa), params)
+    assert ref_out == eng_out
     assert len(ref_out.splitlines()) > 5  # really exercises multi-hit
 
 
@@ -121,8 +121,8 @@ def test_extreme_params_identical(oracle_pkg, tmp_path):
         dict(margin=0, wordsize=16),
     ):
         ref_out = _run(oracle_pkg, str(sts), str(fa), params)
-        tpu_out = _run(merpcr_tpu, str(sts), str(fa), params)
-        assert ref_out == tpu_out, params
+        eng_out = _run(merpcr_tpu, str(sts), str(fa), params)
+        assert ref_out == eng_out, params
         assert ref_out  # non-degenerate: at least one hit somewhere
 
 
@@ -150,9 +150,9 @@ def test_anchor_chunk_boundary_ordering(oracle_pkg, tmp_path):
     fa.write_text(">g\n" + "".join(g) + "\n")
     params = dict(margin=50)
     ref_out = _run(oracle_pkg, str(sts), str(fa), params)
-    tpu_out = _run(merpcr_tpu, str(sts), str(fa), params)
+    eng_out = _run(merpcr_tpu, str(sts), str(fa), params)
     assert ref_out.count("\n") > 95  # 90 plants + extra-window products
-    assert ref_out == tpu_out
+    assert ref_out == eng_out
 
 
 def test_hit_overflow_escalates_byte_equal(oracle_pkg, tmp_path):
@@ -175,6 +175,6 @@ def test_hit_overflow_escalates_byte_equal(oracle_pkg, tmp_path):
     sts.write_text(f"S1\t{p1}\t{p2}\t200\n")
     fa.write_text(">g\n" + "".join(g) + "\n")
     ref_out = _run(oracle_pkg, str(sts), str(fa), {})
-    tpu_out = _run(merpcr_tpu, str(sts), str(fa), {})
+    eng_out = _run(merpcr_tpu, str(sts), str(fa), {})
     assert ref_out.count("\n") >= 300
-    assert ref_out == tpu_out
+    assert ref_out == eng_out

@@ -61,9 +61,9 @@ def _case(tmp_path, sts_text, genome, params, oracle_pkg):
     sts.write_text(sts_text)
     write_fasta(str(fa), genome)
     ref_out, _ = _run(oracle_pkg, str(sts), str(fa), params)
-    tpu_out, eng = _run(merpcr_tpu, str(sts), str(fa), params)
-    assert ref_out == tpu_out
-    return tpu_out, eng
+    eng_out, eng = _run(merpcr_tpu, str(sts), str(fa), params)
+    assert ref_out == eng_out
+    return eng_out, eng
 
 
 class TestDirtyBloomFilter:
@@ -114,7 +114,7 @@ class TestDirtyBloomFilter:
         cache = tmp_path / "cache"
         cache.mkdir()
         (cache / "rescan_seeds.json").write_text("{not json!!")
-        monkeypatch.setenv("MERPCR_TPU_CACHE_DIR", str(cache))
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(cache))
         monkeypatch.setattr(E, "_SEED_STORE", None)
         rng = random.Random(43)
         sts_text, shared = gen_shared_wmer_sts(
@@ -313,7 +313,7 @@ class TestSharedWmerFlood:
 
         import merpcr_tpu.engine as E
 
-        monkeypatch.setenv("MERPCR_TPU_CACHE_DIR", str(tmp_path / "cache"))
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
         monkeypatch.setattr(E, "_SEED_STORE", None)  # fresh store state
         rng = random.Random(31)
         sts_text, shared = gen_shared_wmer_sts(

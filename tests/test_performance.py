@@ -140,7 +140,7 @@ def test_memory_efficiency(tmp_path):
 
 
 def test_mesh_not_slower_than_single(tmp_path):
-    """TPU analogue of the reference's multi-thread-vs-single check
+    """Device analogue of the reference's multi-thread-vs-single check
     (test_performance.py:150-158 allows multi <= 1.5x single): the 8-way
     sharded mesh warm path must not be catastrophically slower than the
     single-device path on the same record (virtual CPU devices give no

@@ -4,7 +4,7 @@ The strict group table + t16 position filter (ops/table._build_strict) are
 active on the DEFAULT configuration (N=0, packed planes), so their
 no-lost-hit claim needs direct adversarial coverage: every case here is
 byte-equality vs the reference oracle (verify semantics: reference
-engine.py:599-642), plus a strict-vs-loose A/B sweep on the TPU engine
+engine.py:599-642), plus a strict-vs-loose A/B sweep on this engine
 itself (same table, strict filtering toggled) proving the filters only
 remove work, never hits.
 """
@@ -30,7 +30,7 @@ def _write(tmp_path, sts_text, fa_text):
     return str(sts), str(fa)
 
 
-def _tpu_out(sts, fa, force_loose=False, **params):
+def _eng_out(sts, fa, force_loose=False, **params):
     eng = merpcr_tpu.MerPCR(**params)
     assert eng.load_sts_file(sts)
     if force_loose:
@@ -79,7 +79,7 @@ def test_extension_base_mismatch_pruned_not_lost(tmp_path):
     sts, fa = _write(tmp_path, f"S1\t{p1}\t{p2}\t{prod}\n", _fa("".join(g)))
     ref = _ref_out(sts, fa)
     assert ref.count("\n") == 1  # only the genuine hit
-    assert _tpu_out(sts, fa) == ref
+    assert _eng_out(sts, fa) == ref
 
 
 @needs_oracle
@@ -115,7 +115,7 @@ def test_iupac_nonpow4_insert_products(tmp_path):
         params = dict(iupac_mode=1)
         ref = _ref_out(sts, fa, **params)
         assert ref.count("\n") == 1, (p1, ref)  # the hit really exists
-        assert _tpu_out(sts, fa, **params) == ref, p1
+        assert _eng_out(sts, fa, **params) == ref, p1
 
 
 def test_strict_build_key_completeness_vs_slow_enumeration():
@@ -203,7 +203,7 @@ def test_hash_offset_nonzero_strict(tmp_path):
     fa_text = _fa("".join(g))
     sts, fa = _write(tmp_path, sts_text, fa_text)
     for params in (dict(), dict(iupac_mode=1), dict(three_prime_match=0)):
-        assert _tpu_out(sts, fa, **params) == _ref_out(sts, fa, **params), params
+        assert _eng_out(sts, fa, **params) == _ref_out(sts, fa, **params), params
 
 
 @needs_oracle
@@ -233,7 +233,7 @@ def test_iupac_letters_in_extension_positions(tmp_path):
     sts, fa = _write(tmp_path, f"S1\t{p1}\t{p2}\t{prod}\n", _fa("".join(g)))
     for params in (dict(iupac_mode=1), dict(iupac_mode=0),
                    dict(iupac_mode=1, mismatches=1)):
-        assert _tpu_out(sts, fa, **params) == _ref_out(sts, fa, **params), params
+        assert _eng_out(sts, fa, **params) == _ref_out(sts, fa, **params), params
 
 
 @needs_oracle
@@ -330,7 +330,7 @@ def test_t16_hash_collision_density(tmp_path):
     )
     ref = _ref_out(sts, fa)
     assert ref.count("\n") >= 50  # really a dense-hit corpus
-    assert _tpu_out(sts, fa) == ref
+    assert _eng_out(sts, fa) == ref
 
 
 @pytest.mark.parametrize("seed", range(12))

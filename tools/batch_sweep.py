@@ -1,7 +1,7 @@
 """Batched small-record scan: lax.map vs vmap (scaffold-heavy workload).
 
-bench.py --records 3000 measures ~0.56 ms/record — dominated by per-tile
-fixed cost inside the batched lax.map (sequential per-iteration machinery
+Scaffold-heavy input (bench.py --records 3000) pays per-tile fixed cost
+inside the batched lax.map (sequential per-iteration machinery
 + the margin stage's cond). vmap vectorizes the 64-row batch front end into
 one wide program (the cond becomes select: padding rows compute, but there
 are at most 2x-1 of them). This tool times both forms at production shapes.

@@ -3,7 +3,8 @@
 Generates random STS sets + genomes (with planted amplicons so hits are
 common), runs both engines in-process, and compares stdout byte-for-byte.
 
-Usage: JAX_PLATFORMS=cpu python tools/difffuzz.py [n_cases] [seed]
+Usage: MERPCR_REFERENCE_SRC=<reference>/src JAX_PLATFORMS=cpu \
+           python tools/difffuzz.py [n_cases] [seed]
 """
 
 from __future__ import annotations
@@ -15,13 +16,26 @@ import sys
 import tempfile
 from contextlib import redirect_stdout
 
-sys.path.insert(0, "/root/reference/src")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import merpcr as ref_pkg  # noqa: E402
-import merpcr_tpu as tpu_pkg  # noqa: E402
+import merpcr_tpu as eng_pkg  # noqa: E402
 import workloads  # noqa: E402  (realistic/adversarial content generators)
+
+def load_reference():
+    """Import the reference merpcr package (the oracle) from the directory
+    MERPCR_REFERENCE_SRC names. Only the fuzz driver needs it;
+    ``gen_case`` and ``run_engine`` work without it."""
+    src = os.environ.get("MERPCR_REFERENCE_SRC")
+    if not src:
+        raise SystemExit(
+            "set MERPCR_REFERENCE_SRC to the reference merpcr's src directory"
+        )
+    sys.path.insert(0, src)
+    import merpcr
+
+    return merpcr
+
 
 BASES = "ACGT"
 AMBIGS = "NRYKMSWBDHV"
@@ -207,16 +221,16 @@ def gen_case(rng, case_idx):
 
 
 def run_engine(pkg, sts_path, fa_path, params, host_path=False):
-    if pkg is tpu_pkg:
-        # every case runs the tpu engine TWICE: once through the device
+    if pkg is eng_pkg:
+        # every case runs this engine TWICE: once through the device
         # pipeline (host routing off) and once through the host (NumPy)
         # fast path — both must match the reference byte-for-byte
         os.environ["MERPCR_TPU_HOST_MAX"] = "1000000000" if host_path else "0"
     eng = pkg.MerPCR(**params)
     tile_override = os.environ.get("MERPCR_TPU_TILE_LEN")
-    if tile_override and pkg is tpu_pkg:
+    if tile_override and pkg is eng_pkg:
         eng._tile_len_override = int(tile_override)
-    if os.environ.get("FUZZ_MESH") and pkg is tpu_pkg:
+    if os.environ.get("FUZZ_MESH") and pkg is eng_pkg:
         # stress the shard_map path against the oracle (run with
         # XLA_FLAGS=--xla_force_host_platform_device_count=8)
         from merpcr_tpu.parallel import make_mesh
@@ -231,10 +245,19 @@ def run_engine(pkg, sts_path, fa_path, params, host_path=False):
     return buf.getvalue()
 
 
+def save_failure(case, sts, fa):
+    """Keep a failing case's inputs under <tempdir>/fuzzfail for replay."""
+    d = os.path.join(tempfile.gettempdir(), "fuzzfail")
+    os.makedirs(d, exist_ok=True)
+    open(os.path.join(d, f"case{case}.sts"), "w").write(sts)
+    open(os.path.join(d, f"case{case}.fa"), "w").write(fa)
+
+
 def main():
     n_cases = int(sys.argv[1]) if len(sys.argv) > 1 else 30
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 0
     rng = random.Random(seed)
+    ref_pkg = load_reference()
     fails = 0
     for case in range(n_cases):
         sts, fa, params = gen_case(rng, case)
@@ -244,31 +267,27 @@ def main():
             open(sp, "w").write(sts)
             open(fp, "w").write(fa)
             ref_out = run_engine(ref_pkg, sp, fp, params)
-            tpu_out = run_engine(tpu_pkg, sp, fp, params)
-            host_out = run_engine(tpu_pkg, sp, fp, params, host_path=True)
-            if host_out != ref_out and tpu_out == ref_out:
+            eng_out = run_engine(eng_pkg, sp, fp, params)
+            host_out = run_engine(eng_pkg, sp, fp, params, host_path=True)
+            if host_out != ref_out and eng_out == ref_out:
                 fails += 1
                 print(f"=== HOST-PATH MISMATCH case {case} params={params}")
-                os.makedirs("/tmp/fuzzfail", exist_ok=True)
-                open(f"/tmp/fuzzfail/case{case}.sts", "w").write(sts)
-                open(f"/tmp/fuzzfail/case{case}.fa", "w").write(fa)
+                save_failure(case, sts, fa)
                 continue
-            if ref_out != tpu_out:
+            if ref_out != eng_out:
                 fails += 1
                 print(f"=== MISMATCH case {case} params={params}")
                 ref_lines = (ref_out or "").splitlines()
-                tpu_lines = (tpu_out or "").splitlines()
-                print(f"ref {len(ref_lines)} lines, tpu {len(tpu_lines)} lines")
-                for a, b in zip(ref_lines, tpu_lines):
+                eng_lines = (eng_out or "").splitlines()
+                print(f"ref {len(ref_lines)} lines, eng {len(eng_lines)} lines")
+                for a, b in zip(ref_lines, eng_lines):
                     if a != b:
-                        print(f"  ref: {a}\n  tpu: {b}")
-                for extra in ref_lines[len(tpu_lines):]:
+                        print(f"  ref: {a}\n  eng: {b}")
+                for extra in ref_lines[len(eng_lines):]:
                     print(f"  ref only: {extra}")
-                for extra in tpu_lines[len(ref_lines):]:
-                    print(f"  tpu only: {extra}")
-                os.makedirs("/tmp/fuzzfail", exist_ok=True)
-                open(f"/tmp/fuzzfail/case{case}.sts", "w").write(sts)
-                open(f"/tmp/fuzzfail/case{case}.fa", "w").write(fa)
+                for extra in eng_lines[len(ref_lines):]:
+                    print(f"  eng only: {extra}")
+                save_failure(case, sts, fa)
             else:
                 nl = len((ref_out or "").splitlines())
                 print(f"case {case}: OK ({nl} hits)")

@@ -2,7 +2,7 @@
 stream vs the single-record control — what do the 3000 record gaps REALLY
 add per tile, vs the capacity model's 3*gpt / 10*gpt terms?
 
-TPU diagnostic; not part of the test suite.
+Device diagnostic; not part of the test suite.
 """
 
 import io

@@ -8,12 +8,13 @@ Usage: python tools/hits_bench.py [n_planted=1000] [mbp=47]
 """
 import io
 import random
+import os
 import sys
 import tempfile
 import time
 from contextlib import redirect_stdout
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from merpcr_tpu.engine import MerPCR  # noqa: E402
 

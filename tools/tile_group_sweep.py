@@ -1,7 +1,7 @@
 """Sweep MerPCR.TILE_GROUP on the real bench path (dense + sparse).
 
-lax.map carries a per-iteration dispatch floor on this platform
-(~1.1 ms, see profile_stages.py); smaller groups trade that floor for
+lax.map carries a per-iteration floor (see profile_stages.py); smaller
+groups trade that floor for
 more host-side async dispatches, which pipelining should hide. This
 measures the end-to-end effect at both bench densities.
 
@@ -14,7 +14,7 @@ import tempfile
 import time
 from contextlib import redirect_stdout
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import gen_data  # noqa: E402
 from merpcr_tpu.engine import MerPCR  # noqa: E402

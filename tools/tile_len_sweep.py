@@ -2,17 +2,18 @@
 
 Larger tiles amortize per-tile fixed costs (dispatch, lax.map/cond
 machinery, stage prologues) against linear gather work; smaller tiles
-bound capacity sizes. Run on TPU to decide TILE_LEN_BUCKETS' top end.
+bound capacity sizes. Run on the GPU to decide TILE_LEN_BUCKETS' top end.
 
 Usage: python tools/tile_len_sweep.py [log2_lens...]   (default 20 21 22)
 """
 import io
+import os
 import sys
 import tempfile
 import time
 from contextlib import redirect_stdout
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import gen_data  # noqa: E402
 from merpcr_tpu.engine import MerPCR  # noqa: E402

@@ -1,19 +1,20 @@
 """A/B: unrolled record-scan group (Python loop in one jit) vs lax.map.
 
-lax.map costs ~3.4 ms/tile at the dense config (tile_group_sweep.py);
-unrolling keeps one dispatch per group without the scan machinery, at
+lax.map pays a per-tile iteration cost (tile_group_sweep.py measures
+it); unrolling keeps one dispatch per group without the scan machinery, at
 the price of compiling the tile body G times.
 
 Usage: python tools/unroll_sweep.py [groups...]
 """
 import io
+import os
 import sys
 import tempfile
 import time
 from contextlib import redirect_stdout
 from functools import lru_cache
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
